@@ -1,4 +1,4 @@
-"""deflate-compression-tpu: a TPU-native DEFLATE compression framework.
+"""deflate-compression-tpu: a data-parallel DEFLATE codec in JAX.
 
 Public API:
 

@@ -4,7 +4,7 @@ tooling (print_bits inspector util/src/print_bits.c, read_img/conv_img pixel
 dumpers util/bin/read_img.py + util/src/conv_img.c).
 
 Subcommands:
-  compress    file -> zlib/gzip/raw DEFLATE (TPU-accelerated encoder)
+  compress    file -> zlib/gzip/raw DEFLATE (device encoder)
   decompress  container-sniffing inflate
   inspect     structural dump of a DEFLATE stream (blocks, types, sizes)
   verify      token-replay verification against a 32 KB ring buffer +
@@ -423,6 +423,8 @@ def main(argv=None) -> int:
     t.set_defaults(fn=cmd_trace)
 
     args = p.parse_args(argv)
+    from .utils import compile_cache
+    compile_cache.enable()
     return args.fn(args)
 
 

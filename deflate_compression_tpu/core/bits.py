@@ -1,6 +1,7 @@
 """Bitstream primitives.
 
-TPU-native replacement for the reference's byte-at-a-time LSB-first bit cursor
+Data-parallel replacement for the reference's byte-at-a-time LSB-first bit
+cursor
 (reference: _bits32/read_bits32 src/include/globals.h:52-64, bit_inc/byte_roundup
 src/include/globals.h:15-17). Instead of a sequential cursor, serialization is
 expressed as an array of (value, nbits) *items* with precomputed absolute bit
@@ -14,7 +15,6 @@ items — see core/huffman.reverse_bits).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -97,23 +97,14 @@ def pack_items64_to_words(lo: jnp.ndarray,
                           nbits: jnp.ndarray,
                           offsets: jnp.ndarray,
                           num_words: int,
-                          windowed: bool = False,
                           sorted_indices: bool = False) -> jnp.ndarray:
     """Scatter up-to-64-bit items into a u32 word array (LSB-first).
 
     Wider sibling of pack_items_to_words: each item is (hi << 32) | lo with
     the low `nbits` (0..64) significant. An item spans at most 3 u32 words
     ((31 + 64 - 1) >> 5 == 2 word crossings), so serialization is three
-    word-contribution streams. With `windowed=True` they land via ONE
-    windowed scatter-add (each update writes a 3-word window — one scatter
-    descriptor per item instead of three); otherwise via three flat
-    scatter-adds. Scatter-add == scatter-OR here because items occupy
-    disjoint bit ranges.
-
-    Measured (TPU v5e, libtpu 0.0.34): the windowed lowering is ~16x SLOWER
-    than three flat scatters (602 ms vs ~38 ms for the full encoder stage on
-    a 256 KB shard) — XLA serializes the windowed updates. Default is flat;
-    re-measure `windowed=True` only after a libtpu upgrade.
+    word-contribution streams, landed by three flat scatter-adds.
+    Scatter-add == scatter-OR here because items occupy disjoint bit ranges.
 
     sorted_indices=True: the caller guarantees `offsets` are non-decreasing
     over the WHOLE array (including zero-width items, which must sit at
@@ -154,21 +145,6 @@ def pack_items64_to_words(lo: jnp.ndarray,
         return out[:num_words]
 
     live = nbits > 0
-    if windowed:
-        # Dead items park at num_words + 1: the window [nw+1, nw+4) stays
-        # inside the padded operand, so nothing is dropped mid-stream and the
-        # pad rows absorb the (zero) contributions.
-        idx = jnp.where(live, w, num_words + 1)[:, None]
-        upd = jnp.stack([w0, w1, w2], axis=1)
-        out = jnp.zeros((num_words + 4,), jnp.uint32)
-        dnums = jax.lax.ScatterDimensionNumbers(
-            update_window_dims=(1,), inserted_window_dims=(),
-            scatter_dims_to_operand_dims=(0,))
-        out = jax.lax.scatter_add(
-            out, idx, upd, dnums,
-            indices_are_sorted=False, unique_indices=False,
-            mode=jax.lax.GatherScatterMode.FILL_OR_DROP)
-        return out[:num_words]
     w0t = jnp.where(live, w, num_words)
     w1t = jnp.where(live, w + 1, num_words)
     w2t = jnp.where(live, w + 2, num_words)
@@ -189,10 +165,11 @@ def pack_items96_to_words(w0v: jnp.ndarray,
     """Scatter up-to-96-bit items (value = w2v<<64 | w1v<<32 | w0v, low
     `nbits` significant) into a u32 word array. A 96-bit item spans at most
     4 words, so four sorted scatter-add streams — callers use this to PAIR
-    adjacent <= 48-bit items, cutting the pack's descriptor traffic from
-    3 streams x N to 4 streams x N/2 (the measured floor is per scatter
-    ELEMENT, ~100M/s). Offsets must be non-decreasing; zero-width items
-    contribute nothing but must sit at their natural stream position."""
+    adjacent <= 48-bit items, cutting the pack's scatter traffic from
+    3 streams x N to 4 streams x N/2 (the design assumed a cost per
+    scatter ELEMENT; not yet measured on the GPU). Offsets must be
+    non-decreasing; zero-width items contribute nothing but must sit at
+    their natural stream position."""
     w0v = w0v.astype(jnp.uint32)
     w1v = w1v.astype(jnp.uint32)
     w2v = w2v.astype(jnp.uint32)

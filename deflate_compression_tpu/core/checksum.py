@@ -1,9 +1,10 @@
-"""Checksums: Adler-32 (zlib footer) and CRC-32 (PNG/gzip), host + TPU paths.
+"""Checksums: Adler-32 (zlib footer) and CRC-32 (PNG/gzip), host and device
+paths.
 
 Reference analogues: adler32 src/deflate_decompress.c:60-68 (byte-serial
 mod-65521 pair) and the table-driven CRC-32 src/include/crc.h:4,22-30.
 
-TPU design: both are reassociated into chunk-parallel forms.
+Device design: both are reassociated into chunk-parallel forms.
   * Adler-32: per-chunk (sum, weighted-sum) reductions + the standard
     sequential combine A = A1+A2-1, B = B1+B2+len2*(A1-1) over few chunks.
   * CRC-32: CRC is GF(2)-linear, so chunk CRCs combine with shift matrices;

@@ -1,6 +1,6 @@
 """Cost model: adaptive DEFLATE block splitting from tile histograms.
 
-This is the TPU-native replacement for the reference's AHT-driven chunk-split
+The data-parallel replacement for the reference's AHT-driven chunk-split
 heuristic (README.md:15-20; the per-symbol cost probe at
 src/deflate_compress.c:290-308 rebuilds a full Huffman tree after EVERY
 emitted symbol — O(n log n) per symbol). Here the same information — "optimal
@@ -85,8 +85,8 @@ def block_plan(ll_freq_micro: jnp.ndarray, d_freq_micro: jnp.ndarray,
         tile_bytes = jnp.full((M,), C.WINDOW_SIZE, jnp.int32)
 
     # All (end-tile, merge-width) segment costs in ONE batched evaluation —
-    # inside the scan they were M sequential dispatches of tiny ops
-    # (measured ~6 ms/shard of pure overhead).
+    # inside the scan they were M sequential loop steps of tiny ops (pure
+    # loop overhead).
     ks = jnp.arange(1, max_merge + 1, dtype=jnp.int32)
     js = jnp.arange(1, M + 1, dtype=jnp.int32)
     cost_all = jax.vmap(lambda j: jax.vmap(
@@ -118,8 +118,8 @@ def block_plan(ll_freq_micro: jnp.ndarray, d_freq_micro: jnp.ndarray,
     if M <= 16:
         # Small M: UNROLL both sequential passes. Each scan step is a
         # handful of ~8-element ops — as lax.scan that is 2M device loop
-        # iterations of pure dispatch overhead (measured ~5.5 ms/shard);
-        # unrolled, XLA fuses the whole DP into a few kernels.
+        # iterations of pure overhead; unrolled, XLA fuses the whole DP
+        # into a few kernels.
         opt_tail = init_tail
         back_list = []
         for jj in range(1, M + 1):

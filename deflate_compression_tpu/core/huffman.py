@@ -9,10 +9,12 @@ Reference analogues:
   * RFC 1951 §3.2.2 canonical code assignment from code lengths:
     src/deflate_decompress.c:146-161 (form_h_tree) — vectorized counting.
   * decode-side tree: the reference walks a pointer tree bit by bit
-    (src/h_tree.c:24-40); we build flat LUTs instead (host + TPU friendly).
+    (src/h_tree.c:24-40); we build flat LUTs instead (host paths).
 
 Determinism: stable sorts with leaf-before-package tie-break and
-symbol-index tie-breaks, so every backend emits byte-identical streams.
+symbol-index tie-breaks, so the code lengths depend on the frequencies
+alone. Whole streams can still differ between backends: the block planner
+(core/cost.py) scores splits with float32 log2, whose last bits may differ.
 """
 from __future__ import annotations
 
@@ -40,14 +42,13 @@ def histogram(symbols: jnp.ndarray, num_classes: int,
 
 
 def histogram_rows_matmul(sym: jnp.ndarray, num_classes: int) -> jnp.ndarray:
-    """Per-row histogram via one-hot × ones on the MXU: (M, L) i32 symbols ->
+    """Per-row histogram as one-hot × ones: (M, L) i32 symbols ->
     (M, num_classes) i32 counts. Out-of-range symbols (e.g. masked-out
     positions mapped to num_classes) match no class and drop out for free.
 
-    The XLA scatter-add histogram is descriptor-bound (~100M elem/s measured,
-    ROADMAP); this formulation is HBM-bandwidth-bound instead: the one-hot is
-    generated and consumed inside the dot fusion. int8 × int8 -> int32 keeps
-    counts exact (L <= 2^23 per row ensures no overflow anywhere near i32).
+    A dense form chosen where scatter-adds were the scarce resource; kept
+    on the GPU by a timing against a flat bincount (PERF.md).
+    int8 × int8 -> int32 keeps counts exact (L <= 2^23 per row ensures no overflow anywhere near i32).
     """
     M, L = sym.shape
     cls = jnp.arange(num_classes, dtype=jnp.int32)
@@ -58,18 +59,16 @@ def histogram_rows_matmul(sym: jnp.ndarray, num_classes: int) -> jnp.ndarray:
     return out[:, 0, :]
 
 
-def rows_matvec_onehot(sym: jnp.ndarray, tab: jnp.ndarray) -> jnp.ndarray:
-    """Per-row table lookup on the MXU: out[m, l] = tab[m, sym[m, l]],
-    out-of-range symbols -> 0. sym (M, L) i32, tab (M, C) with values
-    < 2^24 (f32-exact). The random gather this replaces runs at ~100M
-    elem/s (descriptor-bound); the one-hot dot is HBM-bound instead."""
-    Cn = tab.shape[1]
-    cls = jnp.arange(Cn, dtype=jnp.int32)
-    oh = (sym[:, :, None] == cls[None, None, :]).astype(jnp.float32)
-    out = jax.lax.dot_general(oh, tab.astype(jnp.float32)[:, :, None],
-                              (((2,), (1,)), ((0,), (0,))),
-                              preferred_element_type=jnp.float32)
-    return out[:, :, 0].astype(jnp.uint32)
+def rows_lookup(sym: jnp.ndarray, tab: jnp.ndarray) -> jnp.ndarray:
+    """Per-row table lookup: out[m, l] = tab[m, sym[m, l]] as u32,
+    out-of-range symbols -> 0. sym (M, L) i32, tab (M, C).
+
+    An integer gather, exact for any table word. (A float32 one-hot dot
+    did the same job before; on the GPU it was slower, and at default
+    precision TF32 would corrupt table words near 2^20 — PERF.md.)"""
+    ok = (sym >= 0) & (sym < tab.shape[1])
+    v = jnp.take_along_axis(tab, jnp.where(ok, sym, 0), axis=1)
+    return jnp.where(ok, v, 0).astype(jnp.uint32)
 
 
 def _package_merge_lengths(leaf_w: jnp.ndarray, k: jnp.ndarray, n: int,
@@ -98,8 +97,8 @@ def _package_merge_lengths(leaf_w: jnp.ndarray, k: jnp.ndarray, n: int,
                                 jnp.cumsum(is_leaf)])
 
     # Level 1 list = leaves only; levels 2..L built by a scan (one compiled
-    # merge body instead of max_bits-1 unrolled copies — keeps the TPU HLO
-    # small).
+    # merge body instead of max_bits-1 unrolled copies — keeps the HLO, and
+    # the compile time, small).
     cum1 = cumleaf(leaves2, leaf_flag2)
 
     jn = jnp.arange(n, dtype=jnp.int32)
@@ -108,8 +107,8 @@ def _package_merge_lengths(leaf_w: jnp.ndarray, k: jnp.ndarray, n: int,
         # Both merge inputs are already sorted ascending (leaves by
         # construction; adjacent-pair sums of a sorted list), so the merge is
         # a rank computation — a compare matrix + two n-element scatters —
-        # instead of a stable argsort (measured: the 14 level sorts were the
-        # bulk of the encoder's tree stage).
+        # instead of a stable argsort (the 14 level sorts were once the bulk
+        # of the encoder's tree stage).
         pw = jnp.minimum(w.reshape(n, 2).sum(axis=1), INF_W)  # pairs; INF abs.
         lv = leaves2[:n]
         # ties: leaf before package (same key rule as the reference's

@@ -1,4 +1,4 @@
-"""LZ77 match finding + parse, TPU-native (fixed-shape JAX, jittable).
+"""LZ77 match finding + parse (fixed-shape JAX, jittable).
 
 Reference analogue: the 32 KB sliding-window hash-chain match finder
 (src/deflate_compress.c:14-62 design comment; dup_hash :115-135; chain walk +
@@ -6,9 +6,9 @@ check_dup_str :164-180; greedy decision :243-339). The reference processes
 one byte at a time, appending each position to a per-bucket chain and
 walking it sequentially.
 
-TPU design — built around the measured reality that random gathers are the
-scarce resource (~100M elem/s) while sorts, shifts and elementwise vector
-ops run near bandwidth:
+Design — chosen for hardware where random gathers were the scarce resource
+while sorts, shifts and elementwise vector ops ran near bandwidth; not yet
+re-measured on the GPU:
 
   1. hash every 3-byte prefix (elementwise);
   2. ONE stable argsort by hash; positions AND a 36-byte window payload
@@ -58,7 +58,7 @@ def _padded(x: jnp.ndarray, kmax: int, fill) -> jnp.ndarray:
     """Pad kmax fill-values in front ONCE so per-k shifts become slices.
 
     A concatenate per (candidate, word) materializes a fresh buffer and
-    breaks XLA fusion (measured: the candidate-scoring stage ran ~15x off
+    breaks XLA fusion (the candidate-scoring stage then ran far off
     bandwidth from op overhead); slicing one shared padded buffer keeps the
     whole score chain a single fused elementwise kernel."""
     return jnp.concatenate([jnp.full((kmax,), fill, x.dtype), x])
@@ -86,16 +86,15 @@ def _tail_bytes(diff):
 
 
 def find_matches(data: jnp.ndarray, num_candidates: int = 32,
-                 max_match_words: int = 8, _stop: str = "",
-                 _presel: str = "fold"):
+                 max_match_words: int = 8):
     """Best match per position. Returns (length i32[S], dist i32[S]);
     length 0 where no usable match. Lengths capped at
     min(4 * max_match_words + 3, 258).
 
     For caps up to 8 words the whole score is computed from payload carried
     through the sort: ONE (S, PW+1)-row gather replaces the per-word
-    permutation gathers plus the extension and tail gathers (measured: row
-    gather ~3 ms vs ~28 ms of scalar gathers per 256 KB shard). Caps > 8
+    permutation gathers plus the extension and tail gathers (one row
+    gather was designed to cost far less than the scalar gathers). Caps > 8
     words additionally use the strided-gather extension path."""
     S = data.shape[0]
     pos = jnp.arange(S, dtype=jnp.int32)
@@ -116,18 +115,16 @@ def find_matches(data: jnp.ndarray, num_candidates: int = 32,
                                      jnp.zeros((4 * t,), jnp.uint32)]))
     P = jnp.stack(cols, axis=1)                       # (S, PW+1)
 
-    # NOTE: a single-operand packed sort ((hash14 << 18) | pos) was probed
-    # (tools/probe_sort.py) and is NOT faster — the batched 8x256K sort is
-    # only ~2-3 ms/shard once the ~48 ms dispatch floor is separated, so
-    # argsort keeps the full 16-bit hash.
+    # A single-operand packed sort ((hash14 << 18) | pos) was no faster
+    # when this was designed, so argsort keeps the full 16-bit hash. On the
+    # H100 the sort lowers to a radix sort, a small share of a shard's time
+    # (PERF.md).
     order = jnp.argsort(h, stable=True)
     hs = h[order]
     ps = order.astype(jnp.int32)        # == pos[order]
-    if _stop == "sort":                 # PROFILING: hash + argsort only
-        return (hs.astype(jnp.int32) & 1) + (ps & 1) - (ps & 1), ps & 1
-    # Single-tier scoring (row-descriptor-bound — see tools/profile_r4_encode
-    # ablation): ALL candidates get a 2-word (11-byte-exact) preselect over
-    # NARROW 3-column sorted rows, then the one winner is rescored exactly
+    # Single-tier scoring (row-gather-bound as designed): ALL candidates
+    # get a 2-word (11-byte-exact) preselect over NARROW 3-column sorted
+    # rows, then the one winner is rescored exactly
     # IN POSITION ORDER, where a position's own payload row is just P's
     # natural layout — so the whole stage spends TWO row-gather streams
     # (narrow sorted preselect rows + the winner's rows) and ONE 1-column
@@ -147,8 +144,6 @@ def find_matches(data: jnp.ndarray, num_candidates: int = 32,
         # key = (nbytes+1)<<26 | (K-k)<<20 | cand — which preserves the
         # strict nearest-wins tie-break (smaller k first) without a gather.
         pr = P[:, :FAR_WORDS + 1][order]         # NARROW (S, 3) row gather
-        if _stop == "gather":           # PROFILING: + payload row gather
-            return (jnp.sum(pr, axis=1).astype(jnp.int32) & 1), ps & 1
         pw = [pr[:, t] for t in range(FAR_WORDS + 1)]
         pw_pad = [_padded(pw[t], KM, np.uint32(0))
                   for t in range(FAR_WORDS + 1)]
@@ -160,49 +155,24 @@ def find_matches(data: jnp.ndarray, num_candidates: int = 32,
         seg_start = scans.cummax(jnp.where(run_ne, idx_s, -1))
         dseg = idx_s - seg_start
 
-        if _presel == "fold":
-            # unrolled fused max-reduce: no (K, S) materialization —
-            # measured ~1.1 ms/shard under the stacked form (bit-identical;
-            # tools /tmp probe, round 5); "stack" kept for comparison
-            mk = jnp.full((S,), -1, jnp.int32)
-            for k in range(1, K + 1):
-                cnd = _shifted(ps_pad, k, KM, S)
-                ok = (k <= dseg) & (cnd >= 0) & \
-                    ((ps - cnd) <= C.WINDOW_SIZE)
-                d0f = pw[0] ^ _shifted(pw_pad[0], k, KM, S)
-                d1f = pw[1] ^ _shifted(pw_pad[1], k, KM, S)
-                dlf = pw[2] ^ _shifted(pw_pad[2], k, KM, S)
-                e0f = d0f == 0
-                e1f = d1f == 0
-                nwf = e0f.astype(jnp.int32) + (e0f & e1f).astype(jnp.int32)
-                fdf = jnp.where(~e0f, d0f, jnp.where(~e1f, d1f, dlf))
-                nbf = 4 * nwf + _tail_bytes(fdf)
-                keyf = jnp.where(ok, ((nbf + 1) << 26) | ((K - k) << 20)
-                                 | cnd, -1)
-                mk = jnp.maximum(mk, keyf)
-        else:
-            kvec = jnp.arange(1, K + 1, dtype=jnp.int32)[:, None]
-            same = kvec <= dseg[None, :]
-            ps_k = jnp.stack([_shifted(ps_pad, k, KM, S)
-                              for k in range(1, K + 1)])
-            okk = same & (ps_k >= 0) & ((ps[None, :] - ps_k) <= C.WINDOW_SIZE)
-            d0 = pw[0][None, :] ^ jnp.stack(
-                [_shifted(pw_pad[0], k, KM, S) for k in range(1, K + 1)])
-            d1 = pw[1][None, :] ^ jnp.stack(
-                [_shifted(pw_pad[1], k, KM, S) for k in range(1, K + 1)])
-            dl = pw[2][None, :] ^ jnp.stack(
-                [_shifted(pw_pad[2], k, KM, S) for k in range(1, K + 1)])
-            e0 = d0 == 0
-            e1 = d1 == 0
-            nww = e0.astype(jnp.int32) + (e0 & e1).astype(jnp.int32)
-            fd = jnp.where(~e0, d0, jnp.where(~e1, d1, dl))
-            nbytes_k = 4 * nww + _tail_bytes(fd)              # 0..11
-            key = jnp.where(okk, ((nbytes_k + 1) << 26) | ((K - kvec) << 20)
-                            | ps_k, -1)
-            mk = jnp.max(key, axis=0)
+        # unrolled fused max-reduce: no (K, S) materialization
+        mk = jnp.full((S,), -1, jnp.int32)
+        for k in range(1, K + 1):
+            cnd = _shifted(ps_pad, k, KM, S)
+            ok = (k <= dseg) & (cnd >= 0) & \
+                ((ps - cnd) <= C.WINDOW_SIZE)
+            d0f = pw[0] ^ _shifted(pw_pad[0], k, KM, S)
+            d1f = pw[1] ^ _shifted(pw_pad[1], k, KM, S)
+            dlf = pw[2] ^ _shifted(pw_pad[2], k, KM, S)
+            e0f = d0f == 0
+            e1f = d1f == 0
+            nwf = e0f.astype(jnp.int32) + (e0f & e1f).astype(jnp.int32)
+            fdf = jnp.where(~e0f, d0f, jnp.where(~e1f, d1f, dlf))
+            nbf = 4 * nwf + _tail_bytes(fdf)
+            keyf = jnp.where(ok, ((nbf + 1) << 26) | ((K - k) << 20)
+                             | cnd, -1)
+            mk = jnp.maximum(mk, keyf)
         best_cand = jnp.where(mk >= (1 << 26), mk & 0xFFFFF, -1)
-        if _stop == "preselect":        # PROFILING: + stacked K-candidate
-            return best_cand & 1, best_cand & 2
         # back to position order — ONE 1-column scatter (ps is a permutation)
         cand_p = jnp.full((S,), -1, jnp.int32).at[ps].set(best_cand)
         valid = cand_p >= 0
@@ -225,8 +195,6 @@ def find_matches(data: jnp.ndarray, num_candidates: int = 32,
         blen_p = jnp.where(valid, 4 * nw + _tail_bytes(first_diff), -1)
     else:
         pr = P[order]                                  # full (S, PW+1) rows
-        if _stop == "gather":           # PROFILING: + payload row gather
-            return (jnp.sum(pr, axis=1).astype(jnp.int32) & 1), ps & 1
         pw = [pr[:, t] for t in range(PW + 1)]
         hs_pad = _padded(hs, KM, np.uint32(0xFFFFFFFF))
         pw_pad = [_padded(pw[t], KM, np.uint32(0)) for t in range(PW + 1)]
@@ -338,28 +306,27 @@ def greedy_parse_flat(token_len: jnp.ndarray) -> jnp.ndarray:
 
 
 def greedy_parse(token_len: jnp.ndarray, chunk: int = 64,
-                 scan_batch: int = 8, reset: int = 0,
-                 _pstop: str = "") -> jnp.ndarray:
+                 scan_batch: int = 8, reset: int = 0) -> jnp.ndarray:
     """Greedy left-to-right parse: mark the positions where tokens start.
 
     token_len[i] >= 1 is the number of bytes a token starting at i consumes;
     the chosen set is the orbit of 0 under next[i] = i + token_len[i].
 
-    Chunked resolution (random accesses are the TPU bottleneck): within
+    Chunked resolution (random accesses were the design's bottleneck): within
     `chunk`-position chunks, exit pointers resolve in log2(chunk) doubling
     rounds (phase A, the only full-S gathers); a cheap scan threads entries
     across chunks, `scan_batch` chunks per step (phase B); the within-chunk
     walks from each entry are then marked by ONE lockstep scan of `chunk`
     steps over all chunks simultaneously — per step a (nchunks,)-element
-    gather + scatter instead of full-S doubling rounds (phase C; measured
-    ~2 ms vs ~21 ms for the scatter-doubling variant per 256 KB shard).
+    gather + scatter instead of full-S doubling rounds (phase C; designed
+    to be much cheaper than the scatter-doubling variant).
 
     `reset` > 0 asserts that every multiple of `reset` is a token start —
     true for the codec because tokenize clamps tokens at 32 KB tile
     boundaries — which makes the phase-B threading INDEPENDENT per tile:
     the walks run in lockstep across all tiles, dividing the serial
-    dependent-gather chain (the parse's real cost: ~16 us latency per
-    dependent hop, profiled round 5) by the tile count.
+    dependent-gather chain (the parse's real cost as designed: latency per
+    dependent hop) by the tile count.
     """
     S = token_len.shape[0]
     if S % chunk or S <= chunk or (S // chunk) % scan_batch:
@@ -376,11 +343,11 @@ def greedy_parse(token_len: jnp.ndarray, chunk: int = 64,
     # column j's exit either leaves the chunk directly or equals the exit of
     # a LATER column (walks only move forward), which is already resolved.
     # One (nchunks,)-gather per step — S gathers total — versus log2(chunk)
-    # full-S doubling rounds (measured ~15 ms/256 KB, the parse hot spot).
+    # full-S doubling rounds (once the parse hot spot).
     # TRANSPOSED (chunk, nchunks) layout: each scan step updates one
     # CONTIGUOUS row (in-place in the scan carry) and gathers along axis 0
     # — the axis-1 dynamic_update_slice of the row-major form forced a
-    # full-buffer copy per step (~500 us/step, profiled round 5).
+    # full-buffer copy per step.
     base = jnp.arange(nchunks, dtype=jnp.int32) * chunk
     g2t = g.reshape(nchunks, chunk).T                    # (chunk, nchunks)
     endc = base + chunk                                  # (nchunks,)
@@ -392,10 +359,10 @@ def greedy_parse(token_len: jnp.ndarray, chunk: int = 64,
         out = tgt >= endc
         loc = jnp.clip(tgt - base, 0, chunk - 1)
         # dense small-index select (row space = chunk): replaces the
-        # per-step (nchunks,)-gather — the round-5 rule that fused
-        # compare-select-reduce beats descriptor-bound gathers whenever the
-        # index space is small (tools/probe_onehot). Rows > j are the only
-        # ones selectable (g moves strictly forward within the chunk).
+        # per-step (nchunks,)-gather — a fused compare-select-reduce was
+        # chosen over gathers wherever the index space is small. Rows > j
+        # are the only ones selectable (g moves strictly forward within the
+        # chunk).
         inner = jnp.sum(jnp.where(row_iota == loc[None, :], e2t, 0), axis=0)
         col = jnp.where(out, tgt, inner)
         return jax.lax.dynamic_update_slice_in_dim(
@@ -405,8 +372,6 @@ def greedy_parse(token_len: jnp.ndarray, chunk: int = 64,
     e2t, _ = jax.lax.scan(exit_col, e2t_0,
                           jnp.arange(chunk - 1, -1, -1, dtype=jnp.int32))
     e = e2t.T.reshape(S)
-    if _pstop == "A":                  # PROFILING
-        return e > 0
 
     # phase B: thread entries across chunks (batched scan: `scan_batch`
     # dependent 1-element hops per step — same data, fewer step overheads).
@@ -432,8 +397,6 @@ def greedy_parse(token_len: jnp.ndarray, chunk: int = 64,
                                          dtype=jnp.int32))
     # entries: (steps, scan_batch, T) with chunk id t*cpt + step*sb + j
     entries = entries.reshape(cpt, T).T.reshape(nchunks)
-    if _pstop == "B":                  # PROFILING
-        return jnp.zeros((S,), jnp.bool_).at[jnp.clip(entries, 0, S - 1)].set(True)
 
     # phase C: walk all chunks from their entries in lockstep (transposed
     # (chunk+1, nchunks) jump table, axis-0 gathers — same layout rule as
@@ -466,13 +429,12 @@ def greedy_parse(token_len: jnp.ndarray, chunk: int = 64,
 
 @functools.partial(jax.jit, static_argnames=("num_candidates", "lazy",
                                              "boundary", "max_match_words",
-                                             "_stop", "parse_chunk",
+                                             "parse_chunk",
                                              "parse_scan_batch"))
 def tokenize(data: jnp.ndarray, valid_len: jnp.ndarray,
              num_candidates: int = 32, lazy: bool = True,
              boundary: int = C.WINDOW_SIZE, max_match_words: int = 8,
-             _stop: str = "", parse_chunk: int = 64,
-             parse_scan_batch: int = 8):
+             parse_chunk: int = 64, parse_scan_batch: int = 8):
     """Full LZ77 stage for one shard.
 
     Args:
@@ -491,8 +453,6 @@ def tokenize(data: jnp.ndarray, valid_len: jnp.ndarray,
     pos = jnp.arange(S, dtype=jnp.int32)
 
     length, dist = find_matches(data, num_candidates, max_match_words)
-    if _stop == "matches":             # PROFILING
-        return {"chosen": length > 0, "length": length, "dist": dist}
 
     # Constant runs (period-1): exact dist-1 matches without any gathers.
     from . import scans
@@ -506,8 +466,6 @@ def tokenize(data: jnp.ndarray, valid_len: jnp.ndarray,
     better = run_len > length
     length = jnp.where(better, run_len, length)
     dist = jnp.where(better, 1, dist)
-    if _stop == "rundet":              # PROFILING
-        return {"chosen": length > 0, "length": length, "dist": dist}
 
     # Chain extension to MAX_MATCH with ZERO gathers (log-doubling over
     # shifted slices). If i's match is certified through i+s-1 at dist d and
@@ -526,8 +484,6 @@ def tokenize(data: jnp.ndarray, valid_len: jnp.ndarray,
         can = (length >= s + 3) & (d_s == dist) & (dist > 0)
         length = jnp.where(can, jnp.maximum(length, s + l_s), length)
     length = jnp.minimum(length, C.MAX_MATCH)
-    if _stop == "chainext":            # PROFILING
-        return {"chosen": length > 0, "length": length, "dist": dist}
 
     # Clamp matches to the valid region and to coding-block (tile)
     # boundaries: a token must not EXTEND past a boundary so every block's
@@ -560,16 +516,8 @@ def tokenize(data: jnp.ndarray, valid_len: jnp.ndarray,
         dist = jnp.where(demote, 0, dist)
 
     token_len = jnp.where(length >= C.MIN_MATCH, length, 1)
-    if _stop == "lazy":                # PROFILING
-        return {"chosen": token_len > 1, "length": length, "dist": dist}
     # the boundary clamp makes every `boundary` multiple a token start, so
     # the parse walk provably resets there (greedy_parse `reset`)
-    if _stop in ("parseA", "parseB"):  # PROFILING
-        return {"chosen": greedy_parse(token_len, parse_chunk,
-                                       parse_scan_batch,
-                                       reset=boundary if boundary else 0,
-                                       _pstop=_stop[-1]),
-                "length": length, "dist": dist}
     chosen = greedy_parse(token_len, parse_chunk, parse_scan_batch,
                           reset=boundary if boundary else 0)
     chosen = chosen & (pos < valid_len)

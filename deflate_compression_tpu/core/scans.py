@@ -3,8 +3,9 @@
 `jax.lax.cummax`/`cumsum` on a length-S axis lower to ~log2(S) full-array
 passes (21 passes at S = 2 M). The blocked two-level form does the same
 scan in log2(R) passes over the full array plus a scan over the S/R row
-maxima: with R = 64 that is 6 full-size passes instead of 21 — measured as
-the dominant fixed cost of the TPU decoder's phase C (ROADMAP r4).
+maxima: with R = 64 that is 6 full-size passes instead of 21 (the scans
+were once the dominant fixed cost of the decoder's phase C; not yet
+re-measured on the GPU).
 
 Only 1-D operands (the codec's hot case). Semantics identical to the jax
 primitives; cross-checked against them in tests/test_bits.py.

@@ -3,7 +3,7 @@
 A DEFLATE stream is bit-serial; the index records, per coding block, its bit
 offset, output byte offset and type, making decoding embarrassingly parallel
 (decode/tpu_inflate.py) and giving O(1) random access into the stream — the
-deliberate TPU trade described in SURVEY §7.3 item 4 and PAPERS.md (rapidgzip
+deliberate trade described in SURVEY §7.3 item 4 and PAPERS.md (rapidgzip
 builds the same index at first decode; gzip's zran does it offline).
 
 Version 2 adds SUB-BLOCK entries: a (bit_offset, out_offset, block) triple at
@@ -118,7 +118,7 @@ def build_index(stream: bytes, bit_pos: int = 0,
     COUNTING output bytes (no window needed).
 
     Dispatches to the C++ native pass (native/deflate_native.cpp
-    dct_build_index, >100 MB/s) when available; the Python loop below is the
+    dct_build_index) when available; the Python loop below is the
     oracle path. The block loop replayed is the reference's
     src/deflate_decompress.c:291-345."""
     if prefer_native:
@@ -256,7 +256,7 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
                        shard_out: int = 1 << 20,
                        expected_adler: int | None = None,
                        max_dist: int = C.WINDOW_SIZE) -> bytes:
-    """Decode a raw DEFLATE stream with the TPU-parallel decoder, batching
+    """Decode a raw DEFLATE stream with the device-parallel decoder, batching
     blocks into device groups of ~shard_out output bytes. The previous
     group's last 32 KB rides along as window context so match distances may
     cross group boundaries (general streams have no window resets).
@@ -288,12 +288,18 @@ def decompress_indexed(stream: bytes, index: DecodeIndex,
         NBP = max(1, 1 << int(np.ceil(np.log2(max(nb, 1)))))
         S = 1 << int(np.ceil(np.log2(max(plen + span, 2))))
 
-        # the decoder reads bits relative to the stream start; rebase bytes
+        # upload only the group's own bytes (plus the peek rows' reach past
+        # its last token), rebased to a word-aligned start; the word count
+        # is rounded up to a power of two so groups share compiled shapes
         first_byte = int(index.bit_base[i]) // 8 // 4 * 4   # u32-word align
-        words = np.frombuffer(
-            stream[first_byte:] + b"\x00" * 3, np.uint8)
-        wlen = (len(words) // 4) * 4
-        comp_words = words[:wlen].view(np.uint32)
+        end_byte = ((int(index.bit_base[j]) + 7) // 8 if j < n
+                    else len(stream))
+        cw = 1 << int(np.ceil(np.log2((end_byte - first_byte + 64) // 4 + 1)))
+        words = np.zeros(4 * cw, np.uint8)
+        chunk = np.frombuffer(stream[first_byte:first_byte + 4 * cw],
+                              np.uint8)
+        words[:len(chunk)] = chunk
+        comp_words = words.view(np.uint32)
 
         bb = np.full(NBP, 0, np.int32)
         os_ = np.full(NBP, 0, np.int32)

@@ -14,8 +14,8 @@ Functional mirror of the reference inflater (src/deflate_decompress.c):
 
 Unlike the reference's pointer-tree walk (src/h_tree.c:24-40), decoding uses
 flat canonical LUTs (core/huffman.decode_lut_np): peek 15 bits, one table
-lookup per symbol. This is the correctness oracle for the TPU encoder; the
-C++ native runtime and the TPU two-pass decoder are the fast paths.
+lookup per symbol. This is the correctness oracle for the device encoder;
+the C++ native runtime and the device-parallel decoder are the fast paths.
 """
 from __future__ import annotations
 

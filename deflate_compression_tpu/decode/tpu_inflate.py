@@ -1,6 +1,6 @@
-"""TPU-parallel DEFLATE decoder (indexed, sub-block-parallel, LUT decode).
+"""Device-parallel DEFLATE decoder (indexed, sub-block-parallel).
 
-Huffman decoding is bit-serial, so a TPU-native decoder restructures it
+Huffman decoding is bit-serial, so a data-parallel decoder restructures it
 (SURVEY §7.3 item 4; PAPERS.md "Massively-Parallel Lossless Data
 Decompression" / rapidgzip):
 
@@ -14,9 +14,9 @@ Decompression" / rapidgzip):
     into padded per-block GROUPS of Lg so each group shares one table row,
     then one `while_loop` whose body fetches ONE 192-bit peek row per lane
     and decodes up to KSYM symbols from it; each Huffman code resolves by
-    a fused dense compare over the SYMBOL axis (288/32 entries —
-    tools/probe_onehot measured ~3.7x the descriptor-bound LUT gather),
-    so the loop's only per-symbol descriptor traffic is the token scatter.
+    a fused dense compare over the SYMBOL axis (288/32 entries — chosen
+    over a LUT gather by a design not yet re-measured on the GPU), so the
+    loop's only per-symbol random access is the token scatter.
     A lane stops when its output cursor reaches the next entry, so EOB is
     only ever *written*, never required.
   Phase C — LZ copy resolution: overlapping copies collapse analytically
@@ -39,7 +39,7 @@ any live lane is bad. The loops are bounded, so corrupt input can't hang.
 
 The index (per-block bit/output offsets + sub-entries) comes free from our
 encoder (format/deflate.py stats) or from one host pass over a foreign
-stream (decode/index.py build_index). This is the deliberate TPU trade:
+stream (decode/index.py build_index). This is the deliberate trade:
 random access + device-parallel decode in exchange for a sidecar the
 sequential format doesn't carry.
 """
@@ -145,10 +145,10 @@ LG = 64                  # lanes per dense-lookup group
 def _winwords(words: jnp.ndarray) -> jnp.ndarray:
     """u32[W] -> u32[2W, _NWIN] half-word-granularity row table: row i holds
     bits [16i, 16i + 32*_NWIN) as LSB-first words. Built once, elementwise;
-    the symbol loop fetches a whole window with ONE row gather — row-gather
-    cost is per ROW, not per element (tools/probe_onehot: 4-wide rows cost
-    the same as 2-wide), and the >= 32*_NWIN-15 valid bits cover a RUN of
-    tokens (any single token needs <= 48 bits: cl+leb+dcl+deb)."""
+    the symbol loop fetches a whole window with ONE row gather — the design
+    assumes row-gather cost is per ROW, not per element — and the
+    >= 32*_NWIN-15 valid bits cover a RUN of tokens (any single token needs
+    <= 48 bits: cl+leb+dcl+deb)."""
     w = words.astype(jnp.uint32)
 
     def sh(k):          # w shifted k words (tail zero-filled)
@@ -234,9 +234,9 @@ def _sym_tables(lengths: jnp.ndarray, first: jnp.ndarray, max_bits: int,
     §3.2.2), computed with max_bits elementwise passes — no sorts, no
     gathers. Replaces the (NB, 2^lut_bits) flat LUT entirely: the symbol
     loop resolves a code by a fused compare-select-reduce over the SYMBOL
-    axis (288/32/19 — far smaller than any peek space), which measured
-    ~3.7x faster than the descriptor-bound LUT gather (tools/probe_onehot)
-    and is width-independent, so 15-bit foreign streams ride the same path.
+    axis (288/32/19 — far smaller than any peek space), chosen over the
+    LUT gather and width-independent, so 15-bit foreign streams
+    ride the same path.
     """
     NB, n = lengths.shape
     rank = jnp.zeros((NB, n), jnp.int32)
@@ -264,7 +264,7 @@ def _dense_sym(pk: jnp.ndarray, rcode_g, mask_g, pay_g, Gn: int, Lg: int):
     out[l] = pay of the unique symbol whose reversed code equals the low
     len bits of pk[l]; 0 => invalid prefix. Lanes are grouped (Gn, Lg) so a
     group shares one table row (broadcast, XLA fuses compare+select+reduce
-    into a single VPU pass — no HBM-materialized one-hot)."""
+    into a single elementwise pass — no materialized one-hot)."""
     p = pk.astype(jnp.int32).reshape(Gn, Lg)[:, :, None]
     hit = (p & mask_g[:, None, :]) == rcode_g[:, None, :]
     return jnp.sum(jnp.where(hit, pay_g[:, None, :], 0),
@@ -604,10 +604,8 @@ def decode_blocks(comp_words: jnp.ndarray,
     t_a = tok[:S] & 0x1FF
 
     # Everything phase C gathers is u32/i32 and batched into as few
-    # descriptor streams as possible: sub-word (u8) gathers measured ~10x
-    # slower than word gathers on this stack, and each full-S gather is
-    # ~1.3 ms/shard — this section used to spend 7 S-sized gathers (two of
-    # them u8); it now spends 4, all word-typed.
+    # gathers as possible (sub-word (u8) gathers were much slower than word
+    # gathers where this was designed): 4 S-sized gathers, all word-typed.
     if prefix is not None:
         plen = prefix_len.astype(jnp.int32)
         W = prefix.shape[0]
@@ -685,8 +683,8 @@ def decode_blocks(comp_words: jnp.ndarray,
     # doubling rounds, each an S-sized gather). Only chains that hop
     # between DIFFERENT distances remain for the pointer doubling below.
     # Covering-token distance per position WITHOUT the full-S tok[s_j]
-    # gather (~52 ms per 8 MB — measured as the single largest item of
-    # phase C's fixed machinery): a u32 pack (local_pos+1)<<16 | d is
+    # gather (once the largest item of phase C's fixed machinery):
+    # a u32 pack (local_pos+1)<<16 | d is
     # monotone within 32 KB rows (cummax = segment fill; literal tokens
     # carry d == 0), and a tiny per-row carry chain forward-fills across
     # row boundaries (token extent <= 258 bytes, but empty rows pass the
@@ -754,12 +752,12 @@ def decode_blocks(comp_words: jnp.ndarray,
         vn = jnp.where(tag, hop, v)
         return vn, jnp.any((vn & _TAG) != 0), rr + 1
 
-    # Compact-tail finishing (round-5b): after _CPRE full doubling rounds
-    # the tagged minority (depth > 2^_CPRE, ~8% of S on text) no longer
-    # justifies full-S gather rounds. tools/probe_compact.py rejected the
-    # obvious extraction (full-S mostly-dropped scatter: ~280 ms/8M —
-    # pathological on this stack); tools/probe_compact2.py replaces it with
-    # the round-5 dense small-index mechanism and wins:
+    # Compact-tail finishing: after _CPRE full doubling rounds the tagged
+    # minority (depth > 2^_CPRE, a small share of S on text) no longer
+    # justifies full-S gather rounds. The obvious extraction (a full-S
+    # mostly-dropped scatter) was pathologically slow where this was
+    # designed, so the extraction uses the dense small-index mechanism
+    # instead (not re-measured on the GPU):
     #   * front-compact tagged lanes inside 64-lane rows with a fused
     #     one-hot compare-select-reduce (index space 64 => dense > gather);
     #   * locate the k-th tagged element via two tiny scatter-max + cummax
@@ -858,9 +856,10 @@ def decode_blocks_batch(comp_words, blk_bit, blk_out, blk_btype, n_blocks,
 
     Rationale: vmapping decode_blocks gives every gather/scatter in the
     symbol loop a batch dimension, which lowers to far slower batched
-    gathers than the flat 1-D form (ROADMAP r4). Folding the shard id into
+    gathers than the flat 1-D form (as designed; not re-measured on the
+    GPU). Folding the shard id into
     the index arithmetic — word offsets s*CW*32 bits, output offsets s*S,
-    block ids s*NB — makes every descriptor op flat while keeping shards
+    block ids s*NB — makes every gather and scatter flat while keeping shards
     logically independent: tokens cannot cross shard ends (lane_end clamps
     at block ends) and back-copies cannot reach before a shard's first
     token for well-formed streams (malformed ones fail verification)."""

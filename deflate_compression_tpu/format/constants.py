@@ -4,8 +4,9 @@ These are the DEFLATE alphabets and closed-form code mappings that the C
 reference derives on the fly (reference: get_len_code/get_dist_code
 src/deflate_compress.c:182-217, decode inverses src/deflate_decompress.c:251-277,
 fixed-code tables src/deflate_decompress.c:70-131, HCLEN permutation
-src/deflate_decompress.c:23). Here they are precomputed dense LUTs so the TPU
-encode/decode paths are pure gathers with no data-dependent control flow.
+src/deflate_decompress.c:23). Here they are precomputed dense LUTs so the
+device encode/decode paths are pure gathers with no data-dependent control
+flow.
 """
 from __future__ import annotations
 

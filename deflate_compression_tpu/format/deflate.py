@@ -2,7 +2,7 @@
 
 This is the encode-side mirror of the reference's (unfinished) compressor:
 where src/deflate_compress.c:269,279 says "// TODO: write lit / len,dist",
-this module actually serializes. Architecture (TPU-first, SURVEY §7):
+this module actually serializes. Architecture (data-parallel, SURVEY §7):
 
   * One shard (S bytes, S % 32768 == 0) is tokenized once by core/lz77 with a
     true 32 KB window crossing block boundaries (RFC window semantics).
@@ -81,8 +81,7 @@ def _ilog2(v: jnp.ndarray) -> jnp.ndarray:
     """floor(log2(v)) for v >= 1, elementwise, exact for v < 2^24 (f32
     mantissa width): the float's biased exponent IS the answer. Replaces
     the reference's __builtin_clz (src/deflate_compress.c:182-217) — and
-    replaces full-shard LUT gathers (the scarce ~100M elem/s resource)
-    with pure VPU math."""
+    replaces full-shard LUT gathers with pure elementwise math."""
     f = v.astype(jnp.float32)
     return (jax.lax.bitcast_convert_type(f, jnp.int32) >> 23) - 127
 
@@ -255,10 +254,9 @@ def encode_shard(data: jnp.ndarray, valid_len: jnp.ndarray,
     # -------------------------------------------------------- block planning
     # Per-tile histograms at position granularity: sufficient statistics for
     # the split DP AND (segment-summed) for the per-block Huffman trees, so
-    # the token-slot arrays never need re-histogramming. Computed on the MXU
-    # (one-hot × ones, core/huffman.histogram_rows_matmul) — HBM-bound
-    # instead of scatter-descriptor-bound; masked positions map to the
-    # dropped class num_classes.
+    # the token-slot arrays never need re-histogramming. Computed as an int8
+    # one-hot × ones dot (core/huffman.histogram_rows_matmul); masked
+    # positions map to the dropped class num_classes.
     ll_sym_t = jnp.where(chosen, ll_sym_pos, C.NUM_LITLEN)
     ll_freq_micro = huffman.histogram_rows_matmul(
         ll_sym_t.reshape(NB, BLOCK), C.NUM_LITLEN)
@@ -315,10 +313,10 @@ def encode_shard(data: jnp.ndarray, valid_len: jnp.ndarray,
     d_freq_t = _force_two_codes(d_freq)
 
     # Trees are length-limited to TREE_LIMIT (< the RFC's 15): package-
-    # merge at 11 costs +0.07% on the bee literal histogram but lets the
-    # TPU decoder build 2^11 LUTs instead of 2^15 — a 16x cut in the
-    # decode's per-block table-build traffic (decode/tpu_inflate.py
-    # lut_bits). Any conformant inflater accepts the streams (11 <= 15).
+    # merge at 11 cost +0.07% on a text literal histogram and once let the
+    # device decoder build 2^11 LUTs instead of 2^15 (that decoder has
+    # since dropped its LUTs). Any conformant inflater accepts the streams
+    # (11 <= 15).
     #
     # The dist alphabet rides the SAME vmapped package-merge as litlen
     # (zero-padded 30 -> 286): the extra inactive symbols change nothing
@@ -419,13 +417,13 @@ def encode_shard(data: jnp.ndarray, valid_len: jnp.ndarray,
     d_tab = d_code_rev | (d_len_eff.astype(jnp.uint32) << np.uint32(16))
 
     # ------------------------------------------------------------ token items
-    # Items are FINISHED at position granularity — table values come off the
-    # MXU (rows_matvec_onehot), so no T-sized random gathers; each token is
-    # ONE <= 48-bit (lo, hi, nbits) item at its own position.
-    tabv_ll = huffman.rows_matvec_onehot(
+    # Items are FINISHED at position granularity — one per-row table
+    # lookup per alphabet (huffman.rows_lookup); each token is ONE <= 48-bit
+    # (lo, hi, nbits) item at its own position.
+    tabv_ll = huffman.rows_lookup(
         ll_sym_t.reshape(NB, BLOCK),
         ll_tab[blk_id_micro]).reshape(S)                 # code_rev | len<<16
-    tabv_d = huffman.rows_matvec_onehot(
+    tabv_d = huffman.rows_lookup(
         d_sym_t.reshape(NB, BLOCK), d_tab[blk_id_micro]).reshape(S)
 
     huff_b = (btype != C.BTYPE_STORED) & b_emitted           # (NB,)
@@ -455,7 +453,7 @@ def encode_shard(data: jnp.ndarray, valid_len: jnp.ndarray,
     # already per-position (nbits 0 where no token starts), and offsets are
     # one exclusive cumsum rebased per block — so the position->slot row
     # scatter, the T-sized offset gathers and the slot arrays all disappear
-    # (each was ~2.6 ms/shard of descriptor traffic). EOBs ride the header
+    # (each was costly as designed). EOBs ride the header
     # item matrix (_SLOT_EOB), placed at each block's token end.
     nbs_chosen = jnp.where(chosen, nbs_pos.astype(jnp.int32), 0)
     micro_bits = jnp.sum(nbs_chosen.reshape(NB, BLOCK), axis=1)
@@ -574,7 +572,7 @@ def encode_shard(data: jnp.ndarray, valid_len: jnp.ndarray,
     # block position offsets are gapless (off[2i+1] == off[2i] + nb[2i]) and
     # blocks are 32768-aligned so pairs never straddle one — v = v1 |
     # (v2 << nb1) exactly. Halves the pack's scatter streams' element count
-    # (4 x S/2 vs 3 x S; the ~100M elem/s descriptor rate is the floor).
+    # (4 x S/2 vs 3 x S; the design assumes a cost per scatter element).
     full32 = np.uint32(0xFFFFFFFF)
     nb_lo = jnp.clip(nbs_chosen, 0, 32)
     nb_hi = jnp.clip(nbs_chosen - 32, 0, 32)
@@ -648,8 +646,8 @@ def encode_shard(data: jnp.ndarray, valid_len: jnp.ndarray,
     # finishes, so uniform tokens-per-lane is what actually cuts steps
     # (decode/tpu_inflate.py phase B).
     NSUB = S // 64                         # lane capacity (static): more
-    # lanes = fewer decoder while_loop steps (the loop's per-step kernel
-    # overhead, not its gather traffic, dominated at S//256 — profiled r4)
+    # lanes = fewer decoder while_loop steps (the loop's per-step
+    # overhead, not its gather traffic, dominated at S//256 as designed)
     # stride is sized on HUFFMAN tokens only: stored-block tokens never ride
     # decode lanes, and counting them inflated the stride (= the decoder's
     # while_loop step count, worst lane) ~2.5x on mixed corpora

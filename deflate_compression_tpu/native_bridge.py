@@ -3,12 +3,18 @@
 Builds the shared library on first use (g++ via native/Makefile) and falls
 back to the pure-Python paths when a toolchain is unavailable, so the
 framework works everywhere and is fast where it can be.
+
+The library's file name carries the host's machine type and a hash of the
+source, so a library built from another `deflate_native.cpp`, or for
+another kind of CPU, is never loaded: the matching one is built instead.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
 import threading
 
@@ -16,7 +22,7 @@ log = logging.getLogger("deflate_compression_tpu.native")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libdeflate_native.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "deflate_native.cpp")
 
 _lock = threading.Lock()
 _lib = None
@@ -29,14 +35,29 @@ _ERRNAMES = {
 }
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR],
-                       check=True, capture_output=True, timeout=120)
-        return os.path.exists(_SO_PATH)
-    except Exception as e:  # pragma: no cover
-        log.info("native build unavailable: %s", e)
-        return False
+def so_path() -> str:
+    """Library path keyed on the host's machine type and the source hash."""
+    with open(_SRC_PATH, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_NATIVE_DIR, f"libdeflate_native-"
+                                     f"{platform.machine()}-{digest}.so")
+
+
+def build() -> str:
+    """Compile the library from the committed source and return its path.
+    Builds into a private file and renames it into place, so concurrent
+    builders never load a half-written library. Raises OSError (with the
+    compiler's output) or subprocess.TimeoutExpired on failure."""
+    path = so_path()
+    tmp = f"{path[:-3]}.{os.getpid()}.tmp.so"
+    r = subprocess.run(["make", "-B", "-C", _NATIVE_DIR,
+                        f"SO={os.path.basename(tmp)}"],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise OSError(f"native build failed ({r.returncode}): "
+                      f"{r.stderr.strip() or r.stdout.strip()}")
+    os.replace(tmp, path)
+    return path
 
 
 def get_lib():
@@ -46,10 +67,15 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO_PATH) and not _build():
-            return None
+        path = so_path()
+        if not os.path.exists(path):
+            try:
+                build()
+            except (OSError, subprocess.SubprocessError) as e:
+                log.info("native build unavailable: %s", e)
+                return None
         try:
-            lib = ctypes.CDLL(_SO_PATH)
+            lib = ctypes.CDLL(path)
             lib.dct_inflate.restype = ctypes.c_int64
             lib.dct_inflate.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,

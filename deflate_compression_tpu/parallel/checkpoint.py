@@ -2,7 +2,7 @@
 
 The reference persists nothing mid-stream (SURVEY §5.4: compression state is
 in-memory only, freed on exit — deflate_compr_deinit
-src/deflate_compress.c:106-112). The TPU framework makes resume cheap BY
+src/deflate_compress.c:106-112). This framework makes resume cheap BY
 DESIGN: shards are independent DEFLATE block runs joined at byte boundaries
 (format/deflate.py sync flush), so a checkpoint is just
 (next shard index, container bytes written, running adler32) — exactly the

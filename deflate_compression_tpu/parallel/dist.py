@@ -15,8 +15,8 @@ DEFLATE format:
     blocks); across shards, chips work independently and only meet at
     container assembly.
   * Ordered assembly runs ON DEVICE: per-shard byte counts are exchanged
-    (all_gather over ICI), exclusive-summed into shard offsets, and every
-    chip's bytes land at their final container offset — an ordered ragged
+    (all_gather between devices), exclusive-summed into shard offsets, and
+    every chip's bytes land at their final container offset — an ordered ragged
     all-gather (SURVEY §7.3 item 5). adler32 is computed per shard on device
     and combined host-side with the O(#shards) combine identity.
 """
@@ -56,7 +56,7 @@ def _encode_one(data_row, valid_len, final, num_candidates, lazy,
 
 # per-shard decode-index stats exposed by encode_sharded (the canonical
 # field list lives next to its consumer, decode.index.index_from_shards —
-# VERDICT r4 next #6: a distributed encode's output feeds the TPU decoder
+# VERDICT r4 next #6: a distributed encode's output feeds the device decoder
 # with no host re-pass)
 from ..decode.index import INDEX_STAT_FIELDS as _IDX_FIELDS  # noqa: E402
 

@@ -1,14 +1,17 @@
-"""Multi-host launcher: jax.distributed initialization + pod-slice mesh.
+"""Multi-host launcher: jax.distributed initialization + the global mesh.
 
-Reference has no multi-node story (SURVEY §2.2/§5.8: POSIX fds and one pipe
-are its only "communication backends"). Here:
+The reference has no multi-node story (SURVEY §2.2/§5.8: POSIX fds and one
+pipe are its only "communication backends"). Here:
 
-  * single controller per host, `jax.distributed.initialize` handshake
-    (coordinator address via env or args);
-  * the global mesh is 1-D over ALL devices in the slice — shards ride ICI
-    within a host's chips and DCN across hosts only at container-assembly
-    time (the ordered all-gather exchanges per-shard SIZES first, so the
-    cross-host traffic is the compressed bytes, ~3-10x smaller than input);
+  * one controller process per host, or one per GPU; the
+    `jax.distributed.initialize` handshake takes the coordinator address
+    from the arguments or the environment;
+  * where several processes share a host, each passes `local_device_ids`
+    so that it opens only its own cards (a JAX process reserves most of the
+    memory of every card it opens);
+  * the global mesh is 1-D over ALL devices: shards meet only at container
+    assembly, where the ordered all-gather exchanges per-shard SIZES first,
+    so the traffic between processes is the compressed bytes;
   * per-host input slicing: host h reads shards h, h+H, h+2H, ... so reading
     is embarrassingly parallel across hosts too.
 
@@ -28,11 +31,14 @@ log = logging.getLogger("deflate_compression_tpu.launcher")
 
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> dict:
+                     process_id: int | None = None,
+                     local_device_ids: list[int] | None = None) -> dict:
     """Initialize the multi-host runtime (no-op for single process).
 
     Resolution order: explicit args > JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID env > single-process fallback.
+    `local_device_ids` names the cards of this host that this process
+    opens (all of them when None).
     """
     coord = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     nproc = num_processes or int(os.environ.get("JAX_NUM_PROCESSES", "0"))
@@ -41,7 +47,8 @@ def init_distributed(coordinator_address: str | None = None,
 
     if coord and nproc > 1 and pid >= 0:
         jax.distributed.initialize(coordinator_address=coord,
-                                   num_processes=nproc, process_id=pid)
+                                   num_processes=nproc, process_id=pid,
+                                   local_device_ids=local_device_ids)
         log.info("distributed runtime up: process %d/%d via %s",
                  pid, nproc, coord)
     mesh = make_mesh(jax.devices())

@@ -2,10 +2,10 @@
 
 The reference has no config system — compile-time macros plus call-time
 arguments (SURVEY §5.6: sliding window `sw`, `ops` bitfield with
-DEFLATE_NULLTERM, src/include/deflate_ext.h:6-8). The TPU framework owns its
-config design: one frozen dataclass threaded through all entry points, fully
-determining the emitted bitstream (bit-exactness across backends requires the
-config + input + shard plan to pin the output — SURVEY §7.3 item 6).
+DEFLATE_NULLTERM, src/include/deflate_ext.h:6-8). This framework owns its
+config design: one frozen dataclass threaded through all entry points that,
+with the input and the shard plan, fixes the emitted bitstream on a given
+backend (SURVEY §7.3 item 6).
 """
 from __future__ import annotations
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from deflate_compression_tpu.core.aht import AdaptiveHuffmanTree, aht_cost_trace
+from corpora import TEXT_37K
 
 
 def opt_cost(counts):
@@ -36,7 +37,7 @@ STREAMS = [
     np.array([1] * 100),
     np.random.default_rng(2).zipf(1.5, 800) % 64,
     np.frombuffer(
-        open("/root/reference/docs/rfc1951.txt", "rb").read()[:2000], np.uint8),
+        TEXT_37K[:2000], np.uint8),
 ]
 
 

@@ -9,6 +9,7 @@ import pytest
 from deflate_compression_tpu.parallel.checkpoint import (
     CheckpointManager, compress_file_resumable)
 from deflate_compression_tpu.utils.config import CodecConfig
+from corpora import TEXT_57K
 
 CFG = CodecConfig(shard_size=32768)
 
@@ -20,8 +21,7 @@ class Boom(Exception):
 @pytest.fixture
 def corpus(tmp_path):
     rng = np.random.default_rng(0)
-    raw = (open("/root/reference/test_files/original/bee_movie_script.txt",
-                "rb").read()
+    raw = (TEXT_57K
            + rng.integers(0, 256, 50000, dtype=np.uint8).tobytes())
     src = tmp_path / "input.bin"
     src.write_bytes(raw)

@@ -9,36 +9,42 @@ from deflate_compression_tpu.parallel.launcher import (host_shard_indices,
                                                        init_distributed)
 from deflate_compression_tpu.utils.logging_util import (MetricsRecorder,
                                                         setup_logging)
+from corpora import TEXT_20K, TEXT_37K
 
-SRC = "/root/reference/docs/rfc1950.txt"
+
+@pytest.fixture
+def src(tmp_path):
+    p = tmp_path / "in.txt"
+    p.write_bytes(TEXT_20K)
+    return str(p)
 
 
-def test_compress_decompress_cycle(tmp_path):
+def test_compress_decompress_cycle(src, tmp_path):
     out = tmp_path / "x.zz"
     dec = tmp_path / "x.txt"
-    assert main(["compress", SRC, "-o", str(out), "--shard-size", "65536",
+    assert main(["compress", src, "-o", str(out), "--shard-size", "65536",
                  "-v", "--stats", str(tmp_path / "s.csv")]) == 0
-    assert zlib.decompress(out.read_bytes()) == open(SRC, "rb").read()
+    assert zlib.decompress(out.read_bytes()) == TEXT_20K
     assert main(["decompress", str(out), "-o", str(dec)]) == 0
-    assert dec.read_bytes() == open(SRC, "rb").read()
+    assert dec.read_bytes() == TEXT_20K
     csv = (tmp_path / "s.csv").read_text()
     assert csv.startswith("bytes,compressed_bits")
 
 
-def test_gzip_container_cli(tmp_path):
+def test_gzip_container_cli(src, tmp_path):
     import gzip
     out = tmp_path / "x.gz"
-    assert main(["compress", SRC, "-o", str(out), "--container", "gzip",
+    assert main(["compress", src, "-o", str(out), "--container", "gzip",
                  "--shard-size", "65536"]) == 0
-    assert gzip.decompress(out.read_bytes()) == open(SRC, "rb").read()
+    assert gzip.decompress(out.read_bytes()) == TEXT_20K
     dec = tmp_path / "y.txt"
     assert main(["decompress", str(out), "-o", str(dec)]) == 0
-    assert dec.read_bytes() == open(SRC, "rb").read()
+    assert dec.read_bytes() == TEXT_20K
 
 
-def test_inspect_runs(tmp_path, capsys):
+def test_inspect_runs(src, tmp_path, capsys):
     out = tmp_path / "x.zz"
-    main(["compress", SRC, "-o", str(out), "--shard-size", "65536"])
+    main(["compress", src, "-o", str(out), "--shard-size", "65536"])
     assert main(["inspect", str(out)]) == 0
     cap = capsys.readouterr().out
     assert "zlib container" in cap and "block 0" in cap
@@ -52,9 +58,9 @@ def test_png_dump(tmp_path):
     assert first == "237 28 36"              # golden trace first pixel
 
 
-def test_trace_format(tmp_path):
+def test_trace_format(src, tmp_path):
     out = tmp_path / "t.csv"
-    assert main(["trace", SRC, "-o", str(out)]) == 0
+    assert main(["trace", src, "-o", str(out)]) == 0
     lines = out.read_text().strip().splitlines()
     assert lines[0] == "bytes,compressed_bits"
     assert int(lines[-1].split(",")[0]) == 20502
@@ -81,26 +87,26 @@ def test_metrics_recorder():
     assert m.summary()["block_bits"]["sum"] == 1900
 
 
-def test_index_sidecar_cycle(tmp_path):
+def test_index_sidecar_cycle(src, tmp_path):
     out = tmp_path / "x.zz"
     dcx = tmp_path / "x.dcx"
     dec = tmp_path / "x.out"
-    assert main(["compress", SRC, "-o", str(out), "--shard-size", "65536",
+    assert main(["compress", src, "-o", str(out), "--shard-size", "65536",
                  "--index", str(dcx)]) == 0
     assert dcx.exists() and dcx.read_bytes()[:4] == b"DCXI"
     assert main(["decompress", str(out), "--index", str(dcx),
                  "-o", str(dec)]) == 0
-    assert dec.read_bytes() == open(SRC, "rb").read()
+    assert dec.read_bytes() == TEXT_20K
 
 
-def test_cli_defaults_match_library(tmp_path):
+def test_cli_defaults_match_library(src, tmp_path):
     """CLI default flags must produce byte-identical output to the library's
     DEFAULT_CONFIG (VERDICT r1 weak #4: --candidates divergence)."""
     from deflate_compression_tpu.models.codec import make_codec
     from deflate_compression_tpu.utils.config import DEFAULT_CONFIG
     out = tmp_path / "d.zz"
-    assert main(["compress", SRC, "-o", str(out)]) == 0
-    lib_out = make_codec(DEFAULT_CONFIG).compress(open(SRC, "rb").read())
+    assert main(["compress", src, "-o", str(out)]) == 0
+    lib_out = make_codec(DEFAULT_CONFIG).compress(TEXT_20K)
     assert out.read_bytes() == lib_out
 
 
@@ -118,8 +124,7 @@ def test_cli_verify_ok(tmp_path):
     """verify subcommand: a CLI-compressed file passes all checks."""
     from deflate_compression_tpu.cli import main
     src = tmp_path / "in.txt"
-    src.write_bytes(open("/root/reference/docs/rfc1951.txt", "rb").read()
-                    [:50000])
+    src.write_bytes(TEXT_37K[:50000])
     comp = tmp_path / "out.z"
     assert main(["compress", str(src), "-o", str(comp),
                  "--container", "zlib", "--shard-size", "65536"]) == 0
@@ -130,8 +135,7 @@ def test_cli_verify_flags_corruption(tmp_path):
     """verify subcommand: a deliberately corrupted file is flagged."""
     from deflate_compression_tpu.cli import main
     src = tmp_path / "in.txt"
-    src.write_bytes(open("/root/reference/docs/rfc1950.txt", "rb").read()
-                    [:30000])
+    src.write_bytes(TEXT_20K[:30000])
     comp = tmp_path / "out.z"
     assert main(["compress", str(src), "-o", str(comp),
                  "--container", "zlib", "--shard-size", "65536"]) == 0

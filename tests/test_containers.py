@@ -9,12 +9,13 @@ import pytest
 from deflate_compression_tpu.models.codec import (
     DeflateCodec, GzipCodec, ZlibCodec, make_codec)
 from deflate_compression_tpu.utils.config import CodecConfig
+from corpora import TEXT_20K, TEXT_37K, TEXT_57K
 
 CFG = CodecConfig(shard_size=65536)
 
 
 def test_zlib_container_interop():
-    raw = open("/root/reference/docs/rfc1950.txt", "rb").read()
+    raw = TEXT_20K
     codec = ZlibCodec(CFG)
     comp = codec.compress(raw)
     # external oracle decodes our container
@@ -26,7 +27,7 @@ def test_zlib_container_interop():
 
 
 def test_gzip_container_interop():
-    raw = open("/root/reference/docs/rfc1951.txt", "rb").read()
+    raw = TEXT_37K
     codec = GzipCodec(CFG)
     comp = codec.compress(raw)
     assert gzip_mod.decompress(comp) == raw
@@ -55,7 +56,7 @@ def test_empty_zlib():
 
 
 def test_stats_channel():
-    raw = open("/root/reference/test_files/original/bee_movie_script.txt", "rb").read()
+    raw = TEXT_57K
     codec = ZlibCodec(CFG)
     comp, stats = codec.compress(raw, return_stats=True)
     assert stats.input_bytes == len(raw)

@@ -9,6 +9,7 @@ import pytest
 from deflate_compression_tpu.core import scans
 from deflate_compression_tpu.core.huffman import decode_lut_np
 from deflate_compression_tpu.decode import tpu_inflate as TI
+from corpora import TEXT_37K
 
 
 def _random_lengths(rng, n, max_bits=15):
@@ -150,7 +151,7 @@ def test_decoder_handles_foreign_15bit_codes():
     # skewed data drives deep trees
     raw = (rng.choice(np.frombuffer(b"abcdefgh" * 4 + b"\x00" * 200, np.uint8),
                       1 << 16).tobytes()
-           + open("/root/reference/docs/rfc1951.txt", "rb").read())
+           + TEXT_37K)
     z = zlib.compress(raw, 9)
     body = z[2:-4]
     idx = build_index(body, prefer_native=False)

@@ -14,8 +14,9 @@ from deflate_compression_tpu import native_bridge as nb
 from deflate_compression_tpu.decode.inflate import (_inflate_raw_py,
                                                     zlib_decompress)
 from deflate_compression_tpu.utils.errors import DeflateError
+from corpora import TEXT_20K
 
-RAW = open("/root/reference/docs/rfc1950.txt", "rb").read()
+RAW = TEXT_20K
 GOOD = zlib.compress(RAW, 6)
 
 
@@ -79,13 +80,13 @@ def test_adler_catches_payload_corruption():
 
 
 # ---------------------------------------------------------------------------
-# TPU indexed decoder (decode/tpu_inflate.py): mutations of the compressed
+# device indexed decoder (decode/tpu_inflate.py): mutations of the compressed
 # words AND of index entries must yield ok=False or visibly-wrong output —
 # never a hang (the decoder's loops are step/bit-budget bounded) and never a
 # silent identity.
 # ---------------------------------------------------------------------------
 
-def _tpu_setup():
+def _device_setup():
     import jax.numpy as jnp
     from deflate_compression_tpu.format.deflate import encode_shard_jit
     S = 1 << 16
@@ -97,10 +98,10 @@ def _tpu_setup():
     return S, raw, vl, r
 
 
-def test_tpu_decoder_word_mutations():
+def test_device_decoder_word_mutations():
     import jax.numpy as jnp
     from deflate_compression_tpu.decode.tpu_inflate import decode_shard_indexed
-    S, raw, vl, r = _tpu_setup()
+    S, raw, vl, r = _device_setup()
     words = np.asarray(r["words"]).copy()
     nw = max(2, int(r["total_bits"]) // 32 - 1)
     rng = np.random.default_rng(11)
@@ -121,10 +122,10 @@ def test_tpu_decoder_word_mutations():
     assert flagged >= 3
 
 
-def test_tpu_decoder_index_mutations():
+def test_device_decoder_index_mutations():
     import jax.numpy as jnp
     from deflate_compression_tpu.decode.tpu_inflate import decode_shard_indexed
-    S, raw, vl, r = _tpu_setup()
+    S, raw, vl, r = _device_setup()
     bb = np.asarray(r["block_bit_base"]).copy()
     os_ = np.asarray(r["block_out_start"]).copy()
     bt = np.asarray(r["btype"]).copy()
@@ -153,7 +154,7 @@ def test_tpu_decoder_index_mutations():
         assert (not ok) or out != raw
 
 
-def test_tpu_decoder_garbage_words_terminate():
+def test_device_decoder_garbage_words_terminate():
     """Pure garbage never hangs: loops are bounded by bit budget + steps."""
     import jax.numpy as jnp
     from deflate_compression_tpu.decode.tpu_inflate import decode_shard_indexed
@@ -170,7 +171,7 @@ def test_tpu_decoder_garbage_words_terminate():
     assert not bool(res["ok"])
 
 
-def test_tpu_verified_path_no_mutation_survives():
+def test_device_verified_path_no_mutation_survives():
     """End-to-end guarantee on the user-facing indexed path (cli --index /
     decompress_indexed): with adler verification on, NO word mutation may
     come back as valid-and-wrong — it must either raise or return the exact

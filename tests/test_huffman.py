@@ -132,16 +132,24 @@ def test_histogram_masked():
     assert list(h) == [1, 1, 1, 0, 0, 0, 0, 0, 0, 1]
 
 
-def test_pallas_tile_histogram_interpret():
-    """ops/histogram_pallas must agree with the reference bincount."""
-    import jax
-    from deflate_compression_tpu.ops.histogram_pallas import tile_histogram
+@pytest.mark.parametrize("n_cls", [286, 30])
+def test_rows_lookup_exact_near_2_20(n_cls):
+    """Table words near 2^20 (code | len << 16) come back exactly;
+    out-of-range symbols give 0."""
     rng = np.random.default_rng(3)
-    S, tile, nc = 1 << 14, 2048, 286
-    sym = rng.integers(-1, nc, S).astype(np.int32)
-    got = np.asarray(tile_histogram(jnp.asarray(sym), nc, tile,
-                                    interpret=jax.default_backend() != "tpu"))
-    for i in range(S // tile):
-        seg = sym[i * tile:(i + 1) * tile]
-        want = np.bincount(seg[seg >= 0], minlength=nc)[:nc]
-        assert (got[i] == want).all()
+    sym = rng.integers(-1, n_cls + 2, (4, 4096)).astype(np.int32)
+    tab = rng.integers((1 << 20) - 4096, 1 << 20, (4, n_cls)).astype(np.uint32)
+    ok = (sym >= 0) & (sym < n_cls)
+    want = np.where(ok, np.take_along_axis(tab, np.clip(sym, 0, n_cls - 1),
+                                           axis=1), 0)
+    got = np.asarray(huffman.rows_lookup(jnp.asarray(sym), jnp.asarray(tab)))
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_histogram_rows_matmul_matches_bincount():
+    rng = np.random.default_rng(4)
+    sym = rng.integers(0, 287, (3, 5000)).astype(np.int32)
+    got = np.asarray(huffman.histogram_rows_matmul(jnp.asarray(sym), 286))
+    want = np.stack([np.bincount(r[r < 286], minlength=286) for r in sym])
+    np.testing.assert_array_equal(got, want)

@@ -1,5 +1,5 @@
 """Decode-index sidecar tests: build from foreign streams, serialize,
-random access, and indexed TPU-parallel decode."""
+random access, and indexed device-parallel decode."""
 import zlib
 
 import numpy as np
@@ -8,11 +8,11 @@ import pytest
 from deflate_compression_tpu.decode.index import (DecodeIndex, build_index,
                                                   decompress_indexed)
 from deflate_compression_tpu.format.deflate import deflate_compress_bytes
+from corpora import TEXT_20K, TEXT_37K, TEXT_57K
 
 
 def test_build_index_on_zlib_stream():
-    raw = open("/root/reference/test_files/original/bee_movie_script.txt",
-               "rb").read()
+    raw = TEXT_57K
     comp = zlib.compress(raw, 6)[2:-4]          # raw deflate body
     idx = build_index(comp)
     assert idx.out_len == len(raw)
@@ -33,7 +33,7 @@ def test_index_roundtrip_serialization():
 
 
 def test_random_access_lookup():
-    raw = open("/root/reference/docs/rfc1951.txt", "rb").read()
+    raw = TEXT_37K
     comp = deflate_compress_bytes(raw, shard_size=1 << 17)
     idx = build_index(comp)
     for off in (0, 100, len(raw) // 2, len(raw) - 1):
@@ -44,8 +44,7 @@ def test_random_access_lookup():
 
 def test_indexed_decode_own_stream():
     rng = np.random.default_rng(4)
-    raw = (open("/root/reference/test_files/original/bee_movie_script.txt",
-                "rb").read()
+    raw = (TEXT_57K
            + rng.integers(0, 256, 50000, dtype=np.uint8).tobytes()
            + b"\x00" * 30000)
     comp = deflate_compress_bytes(raw, shard_size=1 << 17)
@@ -55,7 +54,7 @@ def test_indexed_decode_own_stream():
 
 
 def test_indexed_decode_foreign_zlib_stream():
-    raw = open("/root/reference/docs/rfc1950.txt", "rb").read()
+    raw = TEXT_20K
     comp = zlib.compress(raw, 9)[2:-4]
     idx = build_index(comp)
     got = decompress_indexed(comp, idx, shard_out=1 << 17)
@@ -65,8 +64,7 @@ def test_indexed_decode_foreign_zlib_stream():
 def test_indexed_decode_unaligned_groups_cross_window():
     # groups deliberately smaller than encode shards: matches cross group
     # boundaries and must resolve through the carried 32KB window context
-    raw = (b"A" * 5000 + open("/root/reference/test_files/original/"
-                              "bee_movie_script.txt", "rb").read())
+    raw = (b"A" * 5000 + TEXT_57K)
     raw = raw + raw[:40000]          # long-range repetition across blocks
     comp = deflate_compress_bytes(raw, shard_size=1 << 17)
     idx = build_index(comp)
@@ -82,7 +80,7 @@ def test_native_index_matches_python_oracle():
     if not native_bridge.available():
         import pytest
         pytest.skip("native runtime unavailable")
-    raw = (open("/root/reference/docs/rfc1951.txt", "rb").read()
+    raw = (TEXT_37K
            + np.random.default_rng(9).integers(
                0, 256, 40000, dtype=np.uint8).tobytes())
     for comp in (zlib.compress(raw, 6)[2:-4],
@@ -105,7 +103,7 @@ def test_indexed_decode_verifies_adler():
     import pytest
     from deflate_compression_tpu.core.checksum import adler32_np
     from deflate_compression_tpu.utils.errors import DeflateError
-    raw = open("/root/reference/docs/rfc1950.txt", "rb").read()
+    raw = TEXT_20K
     comp = deflate_compress_bytes(raw, shard_size=1 << 17)
     idx = build_index(comp)
     good = adler32_np(np.frombuffer(raw, np.uint8))
@@ -118,9 +116,8 @@ def test_indexed_decode_large_shard_compact_chase():
     """shard_out >= 1<<18 routes the device decode through the round-5b
     scatter-free compact-tail chase (tpu_inflate._compact) on the indexed
     USER path; output must stay byte-exact."""
-    base = (open("/root/reference/docs/rfc1951.txt", "rb").read()
-            + open("/root/reference/test_files/original/"
-                   "bee_movie_script.txt", "rb").read())
+    base = (TEXT_37K
+            + TEXT_57K)
     raw = (base * ((1 << 19) // len(base) + 1))[:1 << 19]
     comp = deflate_compress_bytes(raw, shard_size=1 << 18)
     idx = build_index(comp)

@@ -8,10 +8,11 @@ import pytest
 
 from deflate_compression_tpu.decode.inflate import inflate_raw, zlib_decompress
 from deflate_compression_tpu.utils.errors import DeflateError
+from corpora import TEXT_20K, TEXT_57K
 
 CORPORA = {
-    "bee": lambda: open("/root/reference/test_files/original/bee_movie_script.txt", "rb").read(),
-    "rfc1950": lambda: open("/root/reference/docs/rfc1950.txt", "rb").read(),
+    "bee": lambda: TEXT_57K,
+    "rfc1950": lambda: TEXT_20K,
     "random": lambda: np.random.default_rng(0).integers(0, 256, 50000).astype(np.uint8).tobytes(),
     "zeros": lambda: b"\0" * 100000,
     "short": lambda: b"xyz",

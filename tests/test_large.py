@@ -12,12 +12,12 @@ import pytest
 from deflate_compression_tpu.models.codec import ZlibCodec
 from deflate_compression_tpu.utils.config import CodecConfig
 from deflate_compression_tpu.format import constants as C
+from corpora import TEXT_57K
 
 
 def mixed_corpus(total: int, seed=7) -> bytes:
     rng = np.random.default_rng(seed)
-    bee = open("/root/reference/test_files/original/bee_movie_script.txt",
-               "rb").read()
+    bee = TEXT_57K
     parts = []
     size = 0
     while size < total:

@@ -11,6 +11,7 @@ import pytest
 
 from deflate_compression_tpu.core import lz77
 from deflate_compression_tpu.format import constants as C
+from corpora import TEXT_37K
 
 S = 32768
 
@@ -52,7 +53,7 @@ def run_case(raw: bytes):
 
 
 def test_text():
-    raw = open("/root/reference/docs/rfc1951.txt", "rb").read()[:S]
+    raw = TEXT_37K[:S]
     chosen, length = run_case(raw)
     # text must actually find matches
     assert (length[chosen] >= 3).sum() > 100

@@ -6,6 +6,7 @@ import pytest
 
 from deflate_compression_tpu import native_bridge as nb
 from deflate_compression_tpu.utils.errors import DeflateError
+from corpora import TEXT_57K
 
 pytestmark = pytest.mark.skipif(not nb.available(),
                                 reason="native toolchain unavailable")
@@ -13,8 +14,7 @@ pytestmark = pytest.mark.skipif(not nb.available(),
 
 @pytest.mark.parametrize("level", [0, 1, 6, 9])
 def test_zlib_roundtrip_levels(level):
-    raw = open("/root/reference/test_files/original/bee_movie_script.txt",
-               "rb").read()
+    raw = TEXT_57K
     assert nb.zlib_decompress_native(zlib.compress(raw, level)) == raw
 
 

@@ -8,6 +8,7 @@ import pytest
 
 from deflate_compression_tpu.parallel import dist
 from deflate_compression_tpu.decode.inflate import zlib_decompress
+from corpora import TEXT_20K, TEXT_37K, TEXT_57K
 
 SHARD = 32768  # small per-shard size keeps compiles fast
 
@@ -19,7 +20,7 @@ def mesh():
 
 
 def test_distributed_roundtrip_text(mesh):
-    raw = open("/root/reference/test_files/original/bee_movie_script.txt", "rb").read()
+    raw = TEXT_57K
     comp = dist.compress_distributed(raw, mesh, shard_size=SHARD)
     assert zlib.decompress(comp) == raw          # external oracle
     assert zlib_decompress(comp) == raw          # our inflater
@@ -31,7 +32,7 @@ def test_distributed_matches_single_device_stream(mesh):
     # shard plan.
     from deflate_compression_tpu.models.codec import ZlibCodec
     from deflate_compression_tpu.utils.config import CodecConfig
-    raw = open("/root/reference/docs/rfc1951.txt", "rb").read()
+    raw = TEXT_37K
     comp_d = dist.compress_distributed(raw, mesh, shard_size=SHARD)
     comp_s = ZlibCodec(CodecConfig(shard_size=SHARD)).compress(raw)
     assert comp_d == comp_s
@@ -66,7 +67,7 @@ def test_fault_injection_retry(mesh):
         if wave == 0 and attempt == 0:
             raise RuntimeError("injected chip fault")
 
-    raw = open("/root/reference/docs/rfc1950.txt", "rb").read()
+    raw = TEXT_20K
     comp = dist.compress_distributed(raw, mesh, shard_size=SHARD,
                                      _fault_hook=hook)
     assert zlib.decompress(comp) == raw

@@ -20,9 +20,9 @@ from deflate_compression_tpu.models.codec import (ZlibCodec, compress_stream,
 from deflate_compression_tpu.parallel import dist
 from deflate_compression_tpu.utils.config import CodecConfig
 from deflate_compression_tpu.utils.errors import CodecError, DeflateError
+from corpora import TEXT_57K
 
 SHARD = 32768
-BEE = "/root/reference/test_files/original/bee_movie_script.txt"
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,7 @@ def mesh():
 
 @pytest.fixture(scope="module")
 def bee():
-    return open(BEE, "rb").read()
+    return TEXT_57K
 
 
 # ------------------------------------------------------------- truncation

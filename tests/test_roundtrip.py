@@ -9,6 +9,7 @@ import pytest
 
 from deflate_compression_tpu.format.deflate import deflate_compress_bytes
 from deflate_compression_tpu.decode.inflate import inflate_raw
+from corpora import PIXELS, TEXT_20K, TEXT_37K, TEXT_57K
 
 SHARD = 65536
 
@@ -34,19 +35,19 @@ def test_small_text():
 
 
 def test_bee_movie_corpus():
-    raw = open("/root/reference/test_files/original/bee_movie_script.txt", "rb").read()
+    raw = TEXT_57K
     comp = roundtrip(raw)
     # sanity on ratio: must beat 50% on this text corpus
     assert len(comp) < len(raw) * 0.5
 
 
 def test_rfc1951_corpus():
-    raw = open("/root/reference/docs/rfc1951.txt", "rb").read()
+    raw = TEXT_37K
     roundtrip(raw)
 
 
 def test_sunrise_pixels():
-    raw = open("/root/reference/results/sunrise.px", "rb").read()
+    raw = PIXELS
     roundtrip(raw)
 
 
@@ -72,7 +73,7 @@ def test_multi_shard_boundary_sizes():
 
 
 def test_shard_sizes_change_stream_not_content():
-    raw = open("/root/reference/docs/rfc1950.txt", "rb").read()
+    raw = TEXT_20K
     c1 = deflate_compress_bytes(raw, shard_size=32768)
     c2 = deflate_compress_bytes(raw, shard_size=SHARD)
     assert zlib.decompress(c1, wbits=-15) == raw
@@ -80,7 +81,7 @@ def test_shard_sizes_change_stream_not_content():
 
 
 def test_determinism():
-    raw = open("/root/reference/docs/rfc1951.txt", "rb").read()
+    raw = TEXT_37K
     assert deflate_compress_bytes(raw, shard_size=SHARD) == \
         deflate_compress_bytes(raw, shard_size=SHARD)
 
@@ -92,7 +93,7 @@ def test_baseline_config1_single_fixed_block():
     from deflate_compression_tpu.utils.config import CodecConfig
     from deflate_compression_tpu.decode.index import build_index
 
-    raw = open("/root/reference/docs/rfc1951.txt", "rb").read()
+    raw = TEXT_37K
     codec = DeflateCodec(CodecConfig(shard_size=65536, block_type="fixed",
                                      container="raw"))
     comp = codec.compress(raw)

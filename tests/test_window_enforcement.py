@@ -67,7 +67,7 @@ def test_native_inflater_rejects_window_violation():
         native_bridge.zlib_decompress_native(_violating_stream())
 
 
-def test_tpu_decoder_rejects_window_violation():
+def test_device_decoder_rejects_window_violation():
     from deflate_compression_tpu.decode.index import (build_index,
                                                       decompress_indexed)
     s = _violating_stream()

@@ -1,19 +1,19 @@
-"""Localize the ratio gap vs zlib-6 by corpus component (CPU-only probe).
+"""Localize the ratio gap vs zlib-6 by corpus component.
 
-Encodes each bench-corpus component separately with our encoder and zlib-6
-and prints per-component compressed sizes, so ratio work targets the part
-that actually loses.
+Encodes each component of BASELINE config 4's mixed shape (utils/corpus.py)
+separately with our encoder and with zlib-6 and prints the compressed sizes,
+so ratio work targets the part that actually loses. Ratios do not depend on
+the backend, so the CPU is enough:
+
+    JAX_PLATFORMS=cpu python tools/ratio_probe.py
 """
+import os
 import sys
 import zlib
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
+from deflate_compression_tpu.utils import corpus  # noqa: E402
 
 
 def comp_ours(raw: bytes, **kw) -> int:
@@ -24,14 +24,11 @@ def comp_ours(raw: bytes, **kw) -> int:
 
 
 def main():
-    bee = open("/root/reference/test_files/original/bee_movie_script.txt",
-               "rb").read()
-    rng = np.random.default_rng(1234)
-    rand64k = rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()
-    tiled = bytes(np.tile(rng.integers(0, 256, 64, dtype=np.uint8), 256))
-
-    parts = {"bee_57k": bee, "rand_64k": rand64k, "tiled64_16k": tiled,
-             "bee_x4_228k": bee * 4}
+    text = corpus.text(57344, seed=1234)
+    parts = {"text_56k": text,
+             "rand_64k": corpus.random(65536, seed=1234),
+             "tiled64_16k": corpus.repeated(64 * 256, seed=1234),
+             "text_x4_224k": text * 4}
     for name, raw in parts.items():
         z = len(zlib.compress(raw, 6)) - 6
         o = comp_ours(raw)
